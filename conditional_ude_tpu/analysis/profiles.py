@@ -13,7 +13,7 @@ Reference parity (``src/likelihood-profiles.jl``):
                                     crossed on both / one / no side
                                     (``c-peptide/02-conditional.jl:379-399``).
 
-TPU-first: the reference's serial 10,000-point scan per individual becomes
+Batched: the reference's serial 10,000-point scan per individual becomes
 ONE vmapped evaluation over the [individuals × grid] plane — a single compiled
 program per cohort.
 """
@@ -43,23 +43,6 @@ class Profile(NamedTuple):
     minimum: jax.Array  # [...] min over the grid
 
 
-def fused_kernel_eligible(model: CPeptideModel, solver_kwargs: dict) -> bool:
-    """Whether the fused Pallas profile kernel covers this configuration:
-    canonical conditional (2-input) or covariate (3-input) model with tanh
-    hidden layers + softplus head, and only the 'substeps' solver kwarg.
-    Single source of truth — ``parallel.mesh.sharded_beta_profiles`` gates
-    on the same predicate."""
-    net = model.net
-    kind_ok = ((model.kind == "conditional" and net is not None
-                and net.input_dims == 2)
-               or (model.kind == "conditional_covariate"
-                   and net is not None and net.input_dims == 3))
-    return (kind_ok
-            and all(a == "tanh" for a in net.activations)
-            and net.output_activation == "softplus"
-            and set(solver_kwargs) <= {"substeps"})
-
-
 def likelihood_profile(
     loss_fn: Callable[[jax.Array], jax.Array],
     lower: float,
@@ -85,15 +68,13 @@ def cohort_beta_profiles(
     upper: float = 1.0,
     steps: int = 10_000,
     chunk: int = 500,
-    use_pallas: bool | None = None,
     center: jax.Array | None = None,
     **solver_kwargs,
 ) -> Profile:
     """β-profiles for every individual at once (reference :4-17 looped).
 
     Returns ``values[N, S]``; the scan is chunked over the grid axis to bound
-    memory (N × S trajectories).  On TPU the plain conditional model routes
-    through the fused Pallas kernel (lanes = individuals × grid points).
+    memory (N × S trajectories).
 
     ``center`` — optional per-individual offsets ``[N]``: subject *i* is
     profiled at ``center[i] + grid``, i.e. the grid becomes a shared Δβ axis.
@@ -104,57 +85,6 @@ def cohort_beta_profiles(
     sig = jnp.broadcast_to(jnp.asarray(sigmas, jnp.float32), (cohort.n,))
     ctr = (jnp.zeros((cohort.n,), jnp.float32) if center is None
            else jnp.asarray(center, jnp.float32))
-
-    if use_pallas is None:
-        use_pallas = (jax.default_backend() == "tpu"
-                      and fused_kernel_eligible(model, solver_kwargs))
-    elif use_pallas and not fused_kernel_eligible(model, solver_kwargs):
-        raise ValueError(
-            "use_pallas=True requires the canonical conditional or "
-            "covariate model (2- or 3-input tanh/softplus net) and supports "
-            "only the 'substeps' solver kwarg; use use_pallas=False for "
-            "this configuration")
-    if use_pallas:
-        from conditional_ude_tpu.ops.pallas_rk4 import (
-            cohort_kinetics,
-            cohort_sse_pallas,
-        )
-
-        kernel_substeps = int(solver_kwargs.get("substeps", 8))
-
-        # lanes = (grid point × individual): the screening kernel with the
-        # NN replicated across lanes and per-lane β = the grid value
-        inds = cohort.individuals
-        n = cohort.n
-        kin = cohort_kinetics(cohort, with_age=model.net.input_dims == 3)
-        tp = tuple(float(t) for t in np.asarray(cohort.timepoints))
-        k = len(tp)
-
-        def expand(x):
-            """[N, ...] → [s·N, ...] tiled along the grid-chunk axis."""
-            return jnp.broadcast_to(x[None], (s_chunk,) + x.shape).reshape(
-                (s_chunk * n,) + x.shape[1:])
-
-        parts = []
-        for i in range(0, steps, chunk):
-            g_chunk = grid[i:i + chunk]
-            s_chunk = g_chunk.shape[0]
-            sse_lanes = cohort_sse_pallas(
-                model.net,
-                jnp.broadcast_to(nn_params[None],
-                                 (s_chunk * n, nn_params.shape[0])),
-                (g_chunk[:, None] + ctr[None, :]).reshape(-1),
-                expand(inds.glucose),
-                expand(cohort.cpeptide),
-                expand(kin),
-                tp,
-                kernel_substeps,
-            )
-            vals = sse_lanes.reshape(s_chunk, n).T          # [N, s_chunk]
-            parts.append(vals / (2.0 * sig[:, None] ** 2))
-        values = jnp.concatenate(parts, axis=1)
-        return Profile(grid=grid, values=values,
-                       minimum=jnp.min(values, axis=1))
 
     # nn_params and the cohort arrays are jit OPERANDS (not closure
     # captures): a captured array is baked into the HLO as a constant, so

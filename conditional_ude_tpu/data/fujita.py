@@ -12,7 +12,6 @@ import dataclasses
 from pathlib import Path
 
 import numpy as np
-import pandas as pd
 
 from conditional_ude_tpu.data.ohashi import GLUCOSE_TO_MMOL_L, CPEPTIDE_TO_NMOL_L
 
@@ -33,6 +32,8 @@ class FujitaCohort:
 
 
 def load_fujita(csv_dir: str | Path) -> FujitaCohort:
+    import pandas as pd
+
     df = pd.read_csv(Path(csv_dir) / "fujita_ogtt.csv")
     time_cols = df.columns[2:-1]
     timepoints = np.array([float(c) for c in time_cols])
@@ -43,3 +44,10 @@ def load_fujita(csv_dir: str | Path) -> FujitaCohort:
     ages = np.full(glucose.shape[0], FUJITA_AGE)
     return FujitaCohort(glucose=glucose, cpeptide=cpeptide,
                         timepoints=timepoints, ages=ages)
+
+
+def load_fujita_npz(path: str | Path) -> FujitaCohort:
+    """Read the cohort back from the ``.npz`` the ETL writes."""
+    data = np.load(path, allow_pickle=False)
+    return FujitaCohort(**{f.name: data[f.name]
+                           for f in dataclasses.fields(FujitaCohort)})

@@ -14,7 +14,6 @@ import dataclasses
 from pathlib import Path
 
 import numpy as np
-import pandas as pd
 
 from conditional_ude_tpu.utils.stats import stratified_split
 
@@ -74,6 +73,8 @@ def load_ohashi(
     """ETL the raw Ohashi CSVs into (train, test) splits."""
     csv_dir = Path(csv_dir)
 
+    import pandas as pd
+
     ogtt = pd.read_csv(csv_dir / "ohashi_OGTT.csv", sep=";")
     ogtt = ogtt.dropna()
     subject_numbers = ogtt["No"].to_numpy()
@@ -129,6 +130,8 @@ def load_clamp_insulin(
     Returns ``(timepoints[7], insulin[N, 7] mU/L, types[N])``.
     """
     csv_dir = Path(csv_dir)
+    import pandas as pd
+
     ogtt = pd.read_csv(csv_dir / "ohashi_OGTT.csv", sep=";").dropna()
     subject_numbers = ogtt["No"].to_numpy()
     info = pd.read_csv(csv_dir / "ohashi_subjectinfo.csv", sep=";")

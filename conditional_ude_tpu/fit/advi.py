@@ -4,7 +4,7 @@ The reference repo carries 25 ADVI result files with no surviving script —
 ``source_data/advi/cude_result_*.jld2`` (one per training restart, each a
 ``betas[N]`` + ``parameters[P]`` posterior point estimate; Turing/Bijectors
 are residue in ``Project.toml:3,34``, see SURVEY.md §2.12).  This module is
-the TPU-native reconstruction of that capability: mean-field Gaussian ADVI
+the batched reconstruction of that capability: mean-field Gaussian ADVI
 with the reparameterization trick, the ELBO maximized by Adam, and every
 individual / Monte-Carlo sample / restart a ``vmap`` axis instead of a
 serial Turing chain.
@@ -81,8 +81,12 @@ def advi(
         w = ok.astype(mu.dtype)
         w = w / jnp.maximum(w.sum(), 1.0)
         gz = jnp.where(ok[:, None], gz, 0.0)
-        g_mu = -jnp.einsum("s,sp->p", w, gz)
-        g_rho = -jnp.einsum("s,sp->p", w, gz * eps) * jnp.exp(rho) - 1.0
+        # HIGHEST: a GPU may take default-precision float32 contractions
+        # in TF32, which would bias the Monte-Carlo gradient average
+        hi = jax.lax.Precision.HIGHEST
+        g_mu = -jnp.einsum("s,sp->p", w, gz, precision=hi)
+        g_rho = -jnp.einsum("s,sp->p", w, gz * eps,
+                            precision=hi) * jnp.exp(rho) - 1.0
         updates, opt_state = opt.update((g_mu, g_rho), opt_state, (mu, rho))
         mu, rho = optax.apply_updates((mu, rho), updates)
         entropy = jnp.sum(rho + 0.5 * (_LOG2PI + 1.0))

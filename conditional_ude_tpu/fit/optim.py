@@ -24,7 +24,7 @@ class AdamResult(NamedTuple):
     opt_state: Any = None  # pass back in to resume (chunked dispatch)
 
 
-@partial(jax.jit, static_argnums=(0, 2, 4, 6))
+@partial(jax.jit, static_argnums=(0, 2, 4))
 def adam_minimize(
     fun: Callable[[Any], jax.Array],
     x0: Any,
@@ -32,7 +32,6 @@ def adam_minimize(
     lr: float = 1e-2,
     log_every: int = 0,
     opt_state: Any = None,
-    fun_and_grad: Callable[[Any], tuple] | None = None,
 ) -> AdamResult:
     """Run ``iters`` Adam steps on ``fun`` starting from pytree ``x0``.
 
@@ -42,14 +41,10 @@ def adam_minimize(
     ``suppression/src/suppression_model.jl:22-31``).  ``log_every > 0``
     prints a live loss every that many steps (the reference's ProgressMeter
     display, ``src/parameter-estimation.jl:223-232``).
-
-    ``fun_and_grad`` overrides AD with a fused (value, grad) evaluator —
-    e.g. the Pallas adjoint kernel (``ops/pallas_grad.py``); it must return
-    the same pytree structure as ``jax.value_and_grad(fun)``.
     """
     opt = optax.adam(lr)
     state0 = opt.init(x0) if opt_state is None else opt_state
-    vg = fun_and_grad if fun_and_grad is not None else jax.value_and_grad(fun)
+    vg = jax.value_and_grad(fun)
 
     def step(carry, i):
         x, state = carry

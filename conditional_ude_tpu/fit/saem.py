@@ -4,7 +4,7 @@ Capability parity with ``src/saem.jl`` (cUDE random effects β_i ~ N(η, Ω),
 fixed effects = NN weights + σ) and ``src/saem-symreg.jl`` (symbolic model,
 log-normal individual map kM_i = kM_pop·e^{η_i}, prior mean fixed at 0).
 
-TPU-first redesign: the reference runs, per iteration, a serial Python-style
+Batched redesign: the reference runs, per iteration, a serial Python-style
 loop over individuals each doing ``n_mcmc_steps`` Metropolis steps (2 ODE
 solves per step), then a 5-step population update.  Here the **entire SAEM
 run is one ``lax.scan``** over iterations whose body vmaps the MCMC kernel

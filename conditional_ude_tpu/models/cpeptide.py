@@ -5,7 +5,7 @@ kinetics with four production heads (analytic / UDE / conditional UDE /
 conditional+covariate UDE).  The reference builds one ``ODEProblem`` object
 per individual; here a cohort is a pytree of stacked fixed-shape arrays and
 every per-individual quantity is a ``vmap`` axis, so the whole population
-integrates as one compiled program on the TPU.
+integrates as one compiled program.
 
 ODE (reference ``src/c-peptide-models.jl:7-14``):
     du1 = -(k0 + k2)·u1 + k1·u2 + k0·c0 + production(ΔG(t), …)
@@ -117,9 +117,8 @@ def cohort_dynamic(cohort: Cohort) -> Cohort:
     makes the compiled program — and its persistent-compile-cache key —
     depend on the data bytes: every new cohort of the same shape then
     repays the full compile.  The time grids are measurement-design
-    constants (identical across cohorts of one protocol) and several
-    kernels require them concrete (lockstep stepping,
-    ``ops/pallas_rk4.py``), so they stay closure-side; re-attach with
+    constants (identical across cohorts of one protocol), so they stay
+    closure-side; re-attach with
     :func:`cohort_with_times` inside the traced function.
     """
     return cohort._replace(

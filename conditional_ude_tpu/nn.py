@@ -125,10 +125,10 @@ class MLP:
         ]
         h = x
         for (w, b), act in zip(layers, acts):
-            # HIGHEST: on TPU the default einsum precision routes batched
-            # matmuls through the MXU in bfloat16, which injects ~1e-2
-            # relative error into the ODE right-hand side; these matrices
-            # are tiny so full f32 costs nothing
+            # HIGHEST: at default precision a GPU may take float32
+            # contractions in TF32 (about three decimal digits), which
+            # injects ~1e-3 relative error into the ODE right-hand side;
+            # these matrices are tiny so full float32 costs nothing
             h = jnp.einsum("...oi,...i->...o", w, h,
                            precision=jax.lax.Precision.HIGHEST) + b
             h = act(h)

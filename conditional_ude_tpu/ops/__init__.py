@@ -1,5 +1,4 @@
-"""Numerical compute ops: integrators (pure-JAX + fused Pallas kernels),
-interpolation, batched optimizers."""
+"""Numerical compute ops: integrators, interpolation, batched optimizers."""
 
 from conditional_ude_tpu.ops.interp import LinearInterp
 from conditional_ude_tpu.ops.tsit5 import solve_tsit5, SolveResult
@@ -9,12 +8,6 @@ from conditional_ude_tpu.ops.lbfgs import (
     LBFGSResult,
     LBFGSState,
 )
-from conditional_ude_tpu.ops.pallas_rk4 import (
-    cohort_sse_pallas,
-    population_sse_pallas,
-    screen_population_pallas,
-)
-from conditional_ude_tpu.ops.pallas_tsit5 import cohort_sse_tsit5_pallas
 
 __all__ = [
     "LinearInterp",
@@ -24,8 +17,4 @@ __all__ = [
     "lbfgs_minimize",
     "LBFGSResult",
     "LBFGSState",
-    "cohort_sse_pallas",
-    "cohort_sse_tsit5_pallas",
-    "population_sse_pallas",
-    "screen_population_pallas",
 ]

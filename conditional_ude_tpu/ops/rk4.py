@@ -4,7 +4,7 @@ The cUDE ODEs are small, smooth, and non-stiff (2-3 states, 120-240 min
 spans), so a fixed-step RK4 with a handful of sub-steps per save interval
 sits far below the reference's default tolerances while compiling to a
 single unrolled-free ``lax.scan`` with no control-flow divergence — the
-fastest shape for TPU batch execution.  Used as the throughput path for
+fastest shape for batched execution.  Used as the throughput path for
 screening; the adaptive Tsit5 path provides tolerance parity.
 """
 

@@ -1,6 +1,6 @@
 """Adaptive Tsit5 (Tsitouras 5(4)) explicit Runge-Kutta integrator.
 
-A from-scratch, TPU-first integrator equivalent in capability to the bare
+A from-scratch, batch-first integrator equivalent in capability to the bare
 ``OrdinaryDiffEq.solve(problem, p=θ, saveat=timepoints, save_idxs=1)`` calls
 that dominate the reference's hot loops (``src/parameter-estimation.jl:59``,
 ``src/saem.jl:52``, ``suppression/src/suppression_model.jl:123``):

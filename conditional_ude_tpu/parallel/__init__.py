@@ -1,4 +1,4 @@
-"""Device-mesh parallelism: sharding the restart × individual axes over ICI."""
+"""Device-mesh parallelism: sharding the restart × individual axes."""
 
 from conditional_ude_tpu.parallel.mesh import (
     make_mesh,
@@ -9,7 +9,6 @@ from conditional_ude_tpu.parallel.mesh import (
     shard_leading,
     sharded_beta_profiles,
     sharded_fit_betas,
-    sharded_screen_pallas,
 )
 
 __all__ = [
@@ -21,5 +20,4 @@ __all__ = [
     "shard_leading",
     "sharded_beta_profiles",
     "sharded_fit_betas",
-    "sharded_screen_pallas",
 ]

@@ -4,8 +4,8 @@ The reference's only parallelism is serial loops / ``Distributed.pmap`` over
 local CPU workers (SURVEY.md §2.13).  Here the scaling axes — multi-start
 *restarts* and population *individuals* — are leading array dimensions, and
 this module lays them out over a ``jax.sharding.Mesh`` so that the vmapped
-losses partition across chips with XLA inserting the (tiny) collectives over
-ICI: per-lane ODE solves are fully independent, so the only communication is
+losses partition across devices with XLA inserting the (tiny) collectives:
+per-lane ODE solves are fully independent, so the only communication is
 the final ``mean``/``argsort`` reductions.
 
 Usage pattern (idiomatic pjit, no manual collectives):
@@ -99,88 +99,6 @@ def replicate(tree: Any, mesh: Mesh) -> Any:
                                  NamedSharding(mesh, P())), tree)
 
 
-def sharded_screen_pallas(net, nn_inits, betas, cohort, mesh: Mesh,
-                          axis_name: str = "restarts",
-                          substeps: int = 8) -> jax.Array:
-    """Multi-chip screening: the fused Pallas RK4 kernel under ``shard_map``
-    over the restart axis — each chip screens its shard of the multi-start
-    grid with zero cross-chip communication (lanes are independent; the
-    only collective in the pipeline is the later top-k over [G]).
-
-    ``nn_inits [G, P]`` / ``betas [G, N]`` with G divisible by the mesh
-    axis.  Falls back to interpret mode off-TPU (for mesh dry runs).
-    """
-    from jax import shard_map
-    from jax.sharding import PartitionSpec as P
-
-    from conditional_ude_tpu.ops.pallas_rk4 import (
-        _population_sse_pallas_impl,
-        cohort_kinetics,
-    )
-
-    interpret = jax.default_backend() != "tpu"
-    # the cohort DATA crosses the jit boundary as replicated traced
-    # operands (a closure-captured cohort bakes the data bytes into the
-    # HLO, so the persistent-compile-cache key would depend on them and
-    # every same-shape cohort would repay the compile); only the static
-    # time grid stays closure-side — the kernel needs it concrete
-    inds = cohort.individuals
-    kin = cohort_kinetics(cohort, with_age=net.input_dims == 3)
-    tp = tuple(float(t) for t in np.asarray(cohort.timepoints))
-    fn = shard_map(
-        lambda nn_, b_, gl_, cp_, kin_: _population_sse_pallas_impl(
-            net, nn_, b_, gl_, cp_, kin_, tp, substeps, interpret),
-        mesh=mesh,
-        in_specs=(P(axis_name, None), P(axis_name, None), P(), P(), P()),
-        out_specs=P(axis_name),
-        check_vma=False,
-    )
-    return jax.jit(fn)(nn_inits, betas, inds.glucose, cohort.cpeptide, kin)
-
-
-def sharded_screen_tsit5_pallas(net, nn_params, betas, cohort, mesh: Mesh,
-                                axis_name: str = "restarts",
-                                max_steps: int = 256) -> jax.Array:
-    """Multi-chip adaptive-Tsit5 population evaluation: the fused kernel of
-    ``ops/pallas_tsit5.py`` under ``shard_map`` over the restart axis (the
-    tolerance-parity ranking pass of ``train_conditional``).  Each chip
-    expands ITS restart shard to (restart × individual) lanes locally, so
-    the lane blow-up never crosses chips.  ``nn_params [G, P]`` /
-    ``betas [G, N]`` with G divisible by the mesh axis; interpret mode
-    off-TPU (driver dry runs)."""
-    import jax.numpy as jnp
-    from jax import shard_map
-    from jax.sharding import PartitionSpec as P
-
-    from conditional_ude_tpu.ops.pallas_rk4 import cohort_kinetics
-    from conditional_ude_tpu.ops.pallas_tsit5 import cohort_sse_tsit5_pallas
-
-    interpret = jax.default_backend() != "tpu"
-    kin = cohort_kinetics(cohort, with_age=net.input_dims == 3)
-    tp = tuple(float(t) for t in np.asarray(cohort.timepoints))
-    inds = cohort.individuals
-
-    def body(nn_, b_, gl_, cp_, kin_):
-        g_, n_ = b_.shape
-
-        def rep(x):
-            return jnp.broadcast_to(
-                x[None], (g_,) + x.shape).reshape((g_ * n_,) + x.shape[1:])
-
-        nn_l = jnp.broadcast_to(
-            nn_[:, None, :], (g_, n_, nn_.shape[-1])).reshape(g_ * n_, -1)
-        sse, _ = cohort_sse_tsit5_pallas(
-            net, nn_l, b_.reshape(-1), rep(gl_), rep(cp_), rep(kin_), tp,
-            max_steps, interpret=interpret)
-        return jnp.mean(sse.reshape(g_, n_), axis=1)
-
-    fn = shard_map(body, mesh=mesh,
-                   in_specs=(P(axis_name, None), P(axis_name, None),
-                             P(), P(), P()),
-                   out_specs=P(axis_name), check_vma=False)
-    return jax.jit(fn)(nn_params, betas, inds.glucose, cohort.cpeptide, kin)
-
-
 def shard_cohort(cohort: Any, mesh: Mesh,
                  axis_name: str = "individuals") -> Any:
     """Shard a :class:`~conditional_ude_tpu.models.cpeptide.Cohort` over the
@@ -236,98 +154,31 @@ def sharded_fit_betas(model, nn_params, cohort, mesh: Mesh,
 def sharded_beta_profiles(model, nn_params, cohort, mesh: Mesh,
                           axis_name: str = "individuals",
                           sigmas=1.0, center=None,
-                          use_pallas: bool | None = None,
                           lower: float = -4.0, upper: float = 1.0,
                           steps: int = 10_000, chunk: int = 500,
                           **solver_kwargs):
     """Cohort likelihood-profile scans sharded over the individuals axis
     (``src/likelihood-profiles.jl`` looped per subject in the reference);
-    each chip scans its population shard over the full β grid.
-
-    On TPU the fused Pallas RK4 kernel runs under ``shard_map`` (the
-    Mosaic custom call has no SPMD partitioning rule, so the kernel cannot
-    be fed globally-sharded operands under plain jit — but inside a
-    ``shard_map`` body it sees only its chip-local block, mirroring
-    ``sharded_screen_pallas``): each chip expands (grid-chunk × local
-    individuals) lanes with zero cross-chip communication.  Off-TPU (the
-    driver's virtual mesh dry runs) the kernel runs in interpret mode when
-    forced; the default off-TPU path is the auto-partitioned XLA scan."""
+    each device scans its population shard over the full β grid.  The
+    cohort pads to a multiple of the axis and the padded rows are sliced
+    off the result."""
     import jax.numpy as jnp
 
     from conditional_ude_tpu.analysis.profiles import (
         Profile,
         cohort_beta_profiles,
-        fused_kernel_eligible,
     )
 
     n = cohort.n
     size = mesh.shape[axis_name]
-    kernel_ok = fused_kernel_eligible(model, solver_kwargs)
-    if use_pallas is None:
-        use_pallas = jax.default_backend() == "tpu" and kernel_ok
-    elif use_pallas and not kernel_ok:
-        raise ValueError(
-            "use_pallas=True requires the canonical conditional or "
-            "covariate model (2- or 3-input tanh/softplus net) and "
-            "supports only the 'substeps' solver kwarg")
-
     cohort_p = pad_cohort(cohort, size)
     sig = jnp.broadcast_to(jnp.asarray(sigmas, jnp.float32), (n,))
-    sig_p = pad_to_multiple(sig, size)
     ctr = (jnp.zeros((n,), jnp.float32) if center is None
            else jnp.asarray(center, jnp.float32))
-    ctr_p = pad_to_multiple(ctr, size)
-
-    if not use_pallas:
-        prof = cohort_beta_profiles(
-            model, nn_params, shard_cohort(cohort_p, mesh, axis_name),
-            sigmas=shard_leading(sig_p, mesh, axis_name),
-            center=shard_leading(ctr_p, mesh, axis_name),
-            use_pallas=False, lower=lower, upper=upper, steps=steps,
-            chunk=chunk, **solver_kwargs)
-        return Profile(grid=prof.grid, values=prof.values[:n],
-                       minimum=prof.minimum[:n])
-
-    from jax import shard_map
-    from conditional_ude_tpu.ops.pallas_rk4 import (
-        cohort_kinetics,
-        cohort_sse_pallas,
-    )
-
-    interpret = jax.default_backend() != "tpu"
-    substeps = int(solver_kwargs.get("substeps", 8))
-    kin = cohort_kinetics(cohort_p, with_age=model.net.input_dims == 3)
-    tp = tuple(float(t) for t in np.asarray(cohort_p.timepoints))
-    grid = jnp.linspace(lower, upper, steps)
-    n_local = cohort_p.n // size
-    p_dim = nn_params.shape[0]
-
-    def body(nn_, gl_, cp_, kin_, sig_, ctr_, grid_):
-        def expand(x):
-            return jnp.broadcast_to(
-                x[None], (s_chunk,) + x.shape).reshape(
-                    (s_chunk * n_local,) + x.shape[1:])
-
-        parts = []
-        for i in range(0, steps, chunk):
-            g_chunk = grid_[i:i + chunk]
-            s_chunk = g_chunk.shape[0]
-            lanes = cohort_sse_pallas(
-                model.net,
-                jnp.broadcast_to(nn_[None], (s_chunk * n_local, p_dim)),
-                (g_chunk[:, None] + ctr_[None, :]).reshape(-1),
-                expand(gl_), expand(cp_), expand(kin_), tp, substeps,
-                interpret=interpret)
-            vals = lanes.reshape(s_chunk, n_local).T   # [n_local, s_chunk]
-            parts.append(vals / (2.0 * sig_[:, None] ** 2))
-        return jnp.concatenate(parts, axis=1)
-
-    fn = shard_map(
-        body, mesh=mesh,
-        in_specs=(P(), P(axis_name), P(axis_name), P(axis_name),
-                  P(axis_name), P(axis_name), P()),
-        out_specs=P(axis_name), check_vma=False)
-    values = jax.jit(fn)(nn_params, cohort_p.individuals.glucose,
-                         cohort_p.cpeptide, kin, sig_p, ctr_p, grid)[:n]
-    return Profile(grid=grid, values=values,
-                   minimum=jnp.min(values, axis=1))
+    prof = cohort_beta_profiles(
+        model, nn_params, shard_cohort(cohort_p, mesh, axis_name),
+        sigmas=shard_leading(pad_to_multiple(sig, size), mesh, axis_name),
+        center=shard_leading(pad_to_multiple(ctr, size), mesh, axis_name),
+        lower=lower, upper=upper, steps=steps, chunk=chunk, **solver_kwargs)
+    return Profile(grid=prof.grid, values=prof.values[:n],
+                   minimum=prof.minimum[:n])

@@ -35,8 +35,7 @@ def main():
     from conditional_ude_tpu.nn import chain
     from conditional_ude_tpu.utils.checkpoint import cached
 
-    train, test, cohort_train, cohort_test = load_cohorts(
-        args.data_dir, args.smoke)
+    train, test, cohort_train, cohort_test = load_cohorts(args.smoke)
     tp = jnp.asarray(train.timepoints, jnp.float32)
 
     # mean train curves (01-non-conditional.jl:16-26)

@@ -1,8 +1,8 @@
 """Beyond-parity multi-start: scale the joint cUDE search budget.
 
 The reference's budget is 25,000 inits → 25 restarts
-(``src/parameter-estimation.jl:340-348``).  On one chip the screening pass
-is ~milliseconds (fused Pallas kernel), so the search budget is effectively
+(``src/parameter-estimation.jl:340-348``).  On one accelerator the
+screening pass is sub-second, so the search budget is effectively
 free — this driver runs an enlarged multi-start (default 400k inits →
 96 restarts, 16× the reference's screen and ~4× its refinement budget),
 selects on validation, and evaluates held-out test SSE.

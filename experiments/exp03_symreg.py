@@ -36,7 +36,7 @@ def main():
     from conditional_ude_tpu.models.symbolic import fit_k_sigma, symbolic_model
     from conditional_ude_tpu.utils.stats import spearman
 
-    train, test, *_ = load_cohorts(args.data_dir, args.smoke)
+    train, test, *_ = load_cohorts(args.smoke)
 
     # the reference fits all 117 subjects at once (03-symreg.jl:92-107)
     glucose = np.concatenate([train.glucose, test.glucose])

@@ -14,18 +14,18 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import numpy as np
 
-from common import configure_backend,  Timer, make_parser, write_metrics
+from common import configure_backend, Timer, load_fujita_cohort, make_parser, \
+    write_metrics
 
 
 def main():
     args = make_parser(__doc__).parse_args()
     configure_backend(args)
 
-    from conditional_ude_tpu.data.fujita import load_fujita
     from conditional_ude_tpu.models.cpeptide import build_cohort
     from conditional_ude_tpu.models.symbolic import fit_k_sigma
 
-    fujita = load_fujita(args.data_dir / "fujita_csv")
+    fujita = load_fujita_cohort()
     n = 4 if args.smoke else fujita.glucose.shape[0]
     cohort = build_cohort(fujita.glucose[:n], fujita.timepoints,
                           fujita.cpeptide[:n], fujita.ages[:n],

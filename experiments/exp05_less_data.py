@@ -9,7 +9,7 @@ reference runs one seed; the less-data claim is about a trend, so the
 committed artifact carries per-fraction across-seed medians with IQR
 bands).  The reference distributes fractions over 8 local Julia processes
 with ``pmap``; here each fraction's multi-start training is itself one
-batched TPU program and (seed, fraction) cells run back-to-back.
+batched program and (seed, fraction) cells run back-to-back.
 """
 
 from __future__ import annotations
@@ -110,7 +110,7 @@ def main():
     from conditional_ude_tpu.models.cpeptide import CPeptideModel
     from conditional_ude_tpu.nn import chain
 
-    train, test, _, cohort_test = load_cohorts(args.data_dir, smoke=False)
+    train, test, _, cohort_test = load_cohorts()
 
     net = chain(4, 2, "tanh", input_dims=2)
     model = CPeptideModel(kind="conditional", net=net)

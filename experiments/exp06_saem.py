@@ -42,8 +42,7 @@ def main():
     from conditional_ude_tpu.utils.checkpoint import cached
     from conditional_ude_tpu.utils.stats import spearman
 
-    train, test, cohort_train, cohort_test = load_cohorts(
-        args.data_dir, args.smoke)
+    train, test, cohort_train, cohort_test = load_cohorts(args.smoke)
 
     net = chain(4, 2, "tanh", input_dims=2)
     model = CPeptideModel(kind="conditional", net=net)

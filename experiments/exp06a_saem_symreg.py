@@ -36,7 +36,7 @@ def main():
     )
     from conditional_ude_tpu.models.cpeptide import build_cohort
 
-    train, test, *_ = load_cohorts(args.data_dir, args.smoke)
+    train, test, *_ = load_cohorts(args.smoke)
 
     # reference fits all individuals at once (06a-saem-symreg.jl:29-45)
     glucose = np.concatenate([train.glucose, test.glucose])

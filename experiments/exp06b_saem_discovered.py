@@ -42,7 +42,7 @@ def main():
     )
     from conditional_ude_tpu.models.cpeptide import build_cohort
 
-    train, test, *_ = load_cohorts(args.data_dir, args.smoke)
+    train, test, *_ = load_cohorts(args.smoke)
 
     glucose = np.concatenate([train.glucose, test.glucose])
     cpeptide = np.concatenate([train.cpeptide, test.cpeptide])

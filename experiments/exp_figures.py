@@ -18,7 +18,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import numpy as np
 
-from common import configure_backend, load_cohorts, make_parser, write_metrics
+from common import configure_backend, load_cohorts, load_fujita_cohort, \
+    make_parser, write_metrics
 
 RENDERED: list[str] = []
 
@@ -77,8 +78,7 @@ def main():
     art = args.artifacts
     want = (lambda s: args.sections is None or s in args.sections)
 
-    train, test, cohort_train, cohort_test = load_cohorts(
-        args.data_dir, args.smoke)
+    train, test, cohort_train, cohort_test = load_cohorts(args.smoke)
     dense_t = np.arange(train.timepoints[0], train.timepoints[-1] + 0.1,
                         2.0).astype(np.float32)
     re_iters = 100 if args.smoke else 1000
@@ -98,7 +98,7 @@ def main():
         threshold crossing, simulate both bound β's; a ``None`` side means
         the CI is open there).  All selected subjects profile in ONE
         batched ``cohort_beta_profiles`` call (``center=β̂`` makes the grid
-        a shared Δβ axis; Pallas-fused on TPU)."""
+        a shared Δβ axis)."""
         idx = np.asarray(idx_med, int)
         sub = cohort._replace(
             individuals=jax.tree.map(lambda a: a[idx], cohort.individuals),
@@ -637,13 +637,12 @@ def main():
 
     # -------------------------------------------------------------- external
     if want("external"):
-        from conditional_ude_tpu.data.fujita import load_fujita
         from conditional_ude_tpu.models.symbolic import (
             fit_k_sigma,
             symbolic_model,
         )
 
-        fuj = load_fujita(args.data_dir / "fujita_csv")
+        fuj = load_fujita_cohort()
         cohort_f = build_cohort(fuj.glucose, fuj.timepoints, fuj.cpeptide,
                                 fuj.ages, np.zeros(len(fuj.ages), bool))
         from conditional_ude_tpu.models.cpeptide import simulate

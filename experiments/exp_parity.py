@@ -46,8 +46,7 @@ def main():
     print(f"reference best model #{best}, {nn.shape[0]} params, "
           f"{len(betas_fit)} training betas", file=sys.stderr)
 
-    train, test, cohort_train, cohort_test = load_cohorts(
-        args.data_dir, args.smoke)
+    train, test, cohort_train, cohort_test = load_cohorts(args.smoke)
 
     net = chain(ref["width"], ref["depth"], "tanh", input_dims=2)
     model = CPeptideModel(kind="conditional", net=net)

@@ -25,7 +25,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parent))
 
 import numpy as np
 
-from common import configure_backend, Timer, load_cohorts, make_parser, \
+from common import configure_backend, Timer, load_cohorts, \
+    load_fujita_cohort, make_parser, \
     per_type_mse, write_metrics
 
 
@@ -49,7 +50,7 @@ def main():
     )
     from conditional_ude_tpu.utils.stats import spearman
 
-    train, test, *_ = load_cohorts(args.data_dir, args.smoke)
+    train, test, *_ = load_cohorts(args.smoke)
 
     # all 117 subjects at once, as the reference does for k (03-symreg.jl:92)
     glucose = np.concatenate([train.glucose, test.glucose])
@@ -103,9 +104,8 @@ def main():
     census = classify_identifiability(ci)
 
     # external validation on the independent Fujita cohort (exp04 analog)
-    from conditional_ude_tpu.data.fujita import load_fujita
 
-    fujita = load_fujita(args.data_dir / "fujita_csv")
+    fujita = load_fujita_cohort()
     cohort_f = build_cohort(fujita.glucose, fujita.timepoints,
                             fujita.cpeptide, fujita.ages,
                             np.zeros(len(fujita.ages), bool))

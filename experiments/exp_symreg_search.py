@@ -2,7 +2,7 @@
 (reference ``symbolic-regression/symbolic-regression.ipy`` — PySR with
 binary +,*, unary inv, maxsize 18, 1000 iterations on 8 CPU procs).
 
-Runs the TPU-native GP regressor on the (β, ΔG) → production samples
+Runs the batched GP regressor on the (β, ΔG) → production samples
 exported by experiment 02 (``artifacts/ohashi_production.csv``) and writes a
 PySR-style Pareto table (complexity, loss, equation).
 """

@@ -6,9 +6,7 @@ persistent-compile-cache key) is independent of the data bytes and a new
 same-shape cohort/seed reuses every compiled program.  These tests point
 the persistent cache at a fresh directory, run each surface twice with
 different data of identical shape, and assert the second run adds ZERO
-cache entries.  (`tests/test_pallas_grad.py::
-test_fused_vg_program_is_data_polymorphic` checks the fused refinement
-kernel at the HLO level; here the whole public surfaces are covered.)
+cache entries.
 """
 
 import jax
@@ -174,18 +172,23 @@ def test_fit_k_sigma_is_data_polymorphic(cache_dir):
     _assert_second_run_hits_cache(run, cache_dir)
 
 
-def test_sharded_screen_pallas_is_data_polymorphic(cache_dir):
+def test_mesh_train_conditional_is_data_polymorphic(cache_dir):
+    """The sharded training path (2-device virtual ``("restarts",)`` mesh,
+    restart count padded to the axis) keeps its data out of the compiled
+    programs too."""
+    from conditional_ude_tpu.fit.train import TrainConfig, train_conditional
     from conditional_ude_tpu.parallel import make_mesh
-    from conditional_ude_tpu.parallel.mesh import sharded_screen_pallas
 
     net = chain(4, 2, "tanh", input_dims=2)
+    model = CPeptideModel(kind="conditional", net=net)
     mesh = make_mesh(("restarts",), (2,), jax.devices()[:2])
+    cfg = TrainConfig(initial_guesses=8, selected_initials=3,
+                      adam_iters=2, lbfgs_iters=2, substeps=2,
+                      max_steps=64, screen_chunk=8, final_eval_tsit5=False)
 
     def run(seed):
-        cohort = _cohort(seed, n=4)
-        nn = net.init_batch(jax.random.key(0), 4)
-        betas = jnp.full((4, 4), -1.0 - 0.1 * seed, jnp.float32)
-        out = sharded_screen_pallas(net, nn, betas, cohort, mesh)
-        jax.block_until_ready(out)
+        res = train_conditional(model, _cohort(seed, n=4),
+                                jax.random.key(0), cfg, mesh=mesh)
+        jax.block_until_ready(res.objectives)
 
     _assert_second_run_hits_cache(run, cache_dir)
